@@ -1,10 +1,10 @@
-"""galah_tpu — a TPU-native genome dereplication engine.
+"""galah_tpu — an accelerator-native genome dereplication engine.
 
 A from-scratch reimplementation of the capabilities of galah
-(https://github.com/wwood/galah) designed for TPU hardware: k-mer
+(https://github.com/wwood/galah) that runs on an NVIDIA GPU: k-mer
 sketching, all-vs-all sketch comparison and high-precision ANI run as
-JAX/XLA/Pallas kernels; the greedy quality-ordered clustering runs on
-host over the sparse above-threshold pair list.
+JAX/XLA kernels; the greedy quality-ordered clustering runs on host
+over the sparse above-threshold pair list.
 
 Public API mirrors the reference's five plugin interfaces
 (reference: src/lib.rs:29-76) as Python ABCs in galah_tpu.engines.

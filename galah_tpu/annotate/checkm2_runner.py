@@ -4,7 +4,7 @@ Same subprocess contract as the reference (src/checkm2.rs:59-156):
 genomes are symlinked as `<stem>.fna` into a staging dir, `checkm2
 predict` runs once over the directory, and the quality_report.tsv is
 parsed with path-stem fallback lookups. CheckM2 remains an external
-pluggable tool — it is an ML model, not TPU kernel work.
+pluggable tool — it is an ML model, not kernel work.
 """
 
 from __future__ import annotations

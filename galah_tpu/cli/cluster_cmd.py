@@ -90,11 +90,11 @@ def add_cluster_arguments(sub: argparse.ArgumentParser) -> None:
                                  f"[default: {defaults.DEFAULT_ANI_SEMANTICS}]")
     clustering.add_argument("--precluster-method", default=defaults.DEFAULT_PRECLUSTER_METHOD,
                             choices=list(defaults.PRECLUSTER_METHODS), metavar="NAME",
-                            help="Method of calculating rough ANI: 'native' (TPU), 'finch' (MinHash), 'skani' (external binary) "
+                            help="Method of calculating rough ANI: 'native' (on-device), 'finch' (MinHash), 'skani' (external binary) "
                                  f"[default: {defaults.DEFAULT_PRECLUSTER_METHOD}]")
     clustering.add_argument("--cluster-method", default=defaults.DEFAULT_CLUSTER_METHOD,
                             choices=list(defaults.CLUSTER_METHODS), metavar="NAME",
-                            help="Method of calculating ANI: 'native' (TPU), 'skani'/'fastani' (external binaries) "
+                            help="Method of calculating ANI: 'native' (on-device), 'skani'/'fastani' (external binaries) "
                                  f"[default: {defaults.DEFAULT_CLUSTER_METHOD}]")
     clustering.add_argument("--cluster-contigs", action="store_true",
                             help="Cluster contigs within FASTA files instead of genomes")

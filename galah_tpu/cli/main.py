@@ -12,7 +12,7 @@ from galah_tpu import __version__
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="galah-tpu",
-        description="galah_tpu: TPU-native metagenome assembled genome (MAG) "
+        description="galah_tpu: accelerator-native metagenome assembled genome (MAG) "
         "dereplicator / clusterer",
     )
     parser.add_argument("--version", action="version", version=__version__)
@@ -45,17 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     import os
 
-    platform = os.environ.get("GALAH_TPU_PLATFORM")
-    if platform:
-        # jax.config wins over JAX_PLATFORMS in environments whose
-        # sitecustomize pins a platform, so honor our own env var early.
-        import jax
-
-        jax.config.update("jax_platforms", platform)
-
-    # Persistent XLA compilation cache: repeat runs with the same shape
-    # buckets skip recompilation entirely (minutes per program on some
-    # TPU setups). Disable with GALAH_TPU_NO_COMPILE_CACHE=1.
+    # Persistent XLA compilation cache (utils/platform.py): repeat runs
+    # with the same shape buckets skip recompilation entirely.
     from galah_tpu.utils.platform import enable_compile_cache
 
     enable_compile_cache()

@@ -5,7 +5,7 @@ rep<->member ANI must be >= the threshold, rep<->rep ANI must be below
 it. Failures are logged as errors, not fatal — it's an audit tool.
 
 The reference hardcodes fastANI as the validator; here the validator
-backend is selectable, defaulting to the TPU-native engine so no
+backend is selectable, defaulting to the native engine so no
 external tool is needed.
 """
 

@@ -10,7 +10,7 @@ Behavioral parity with the reference's clusterer (src/clusterer.rs:14-487):
    src/clusterer.rs:182-259) and best-ANI membership assignment
    (src/clusterer.rs:350-449).
 
-Differences by design (TPU-first):
+Differences by design (accelerator-first):
 - preclusters are processed sequentially on host (deterministic output
   order instead of rayon's nondeterministic push order), with the ANI
   evaluations batched to the device;

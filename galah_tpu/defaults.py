@@ -1,7 +1,7 @@
 """Default operating points.
 
 Parity with the reference's constants (reference: src/lib.rs:78-92) plus
-the TPU-native engine's own sketching defaults.
+the native engine's own sketching defaults.
 """
 
 # --- Reference-parity defaults (src/lib.rs:78-92) ---
@@ -12,7 +12,7 @@ DEFAULT_FRAGMENT_LENGTH = 3000
 DEFAULT_QUALITY_FORMULA = "Parks2020_reduced"
 
 # The reference dispatches to external skani/fastANI/finch
-# (src/lib.rs:83-86). Here 'native' is the TPU-native engine which is both
+# (src/lib.rs:83-86). Here 'native' is the on-device engine which is both
 # a preclusterer and a clusterer; 'finch' is the exact-parity Mash MinHash
 # preclusterer; 'skani'/'fastani' are subprocess passthroughs retained for
 # users with those binaries installed.
@@ -38,14 +38,14 @@ MASH_HASH_SEED = 0
 # its skani-compatible modes.
 MIN_SUPPORTED_PRECLUSTER_ANI = 85.0
 
-# --- Native engine sketch defaults (TPU-first; no reference analog) ---
+# --- Native engine sketch defaults (no reference analog) ---
 # Native estimator k-mer length: k=15 balances sensitivity at the 80%
 # fragment-identity cutoff against specificity near 100% ANI.
 NATIVE_KMER_LENGTH = 15
 # Genome-level FracMinHash: keep hashes h < 2**64 / scale.
 NATIVE_SCALE = 200           # ~1 hash kept per 200bp (5Mb genome -> ~25k)
 NATIVE_SMALL_SCALE = 10      # --small-genomes: denser sampling for <20kb seqs
-# Indicator width (bits) for the genome-level sketch used by the MXU
+# Indicator width (bits) for the genome-level sketch used by the
 # screen matmul. ~10% load factor at the default scale.
 NATIVE_PREFILTER_BITS = 1 << 18
 NATIVE_SMALL_PREFILTER_BITS = 1 << 15
@@ -74,8 +74,8 @@ NATIVE_SCREEN_MARGIN = 0.5
 # indel bias so `--ani X` reproduces gap-excluded (skani-style) ANI
 # cuts on indel-bearing real genomes. The bias of a k-mer-window
 # estimator vs gap-excluded ANI is -p_indel*(k+len-1)/k per unit
-# divergence (benchmarks/RESULTS.md round 3; tests/
-# test_estimator_stress.py pins measurement to theory); the calibration
+# divergence (tests/test_estimator_stress.py pins measurement to
+# theory); the calibration
 # assumes the documented typical prokaryote indel load below.
 # Reference threshold semantics: src/skani.rs:718-788 (gap-excluded
 # chaining ANI), src/lib.rs:78-92 (default thresholds tuned for it).

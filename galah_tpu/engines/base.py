@@ -2,11 +2,12 @@
 
 Python equivalents of the reference's trait layer (src/lib.rs:29-76):
 PreclusterDistanceFinder, ClusterDistanceFinder, QualityFinder,
-TrnaFinder, RrnaFinder. One TPU-motivated extension: clusterers expose a
-batched ANI entry point (`calculate_ani_batch`) because on-device pair
-evaluation is cheaper in batches than the reference's one-subprocess-
-per-pair model (src/clusterer.rs:276-296 short-circuits sequentially;
-on TPU evaluating the whole candidate batch at once is faster).
+TrnaFinder, RrnaFinder. One accelerator-motivated extension:
+clusterers expose a batched ANI entry point (`calculate_ani_batch`)
+because on-device pair evaluation is cheaper in batches than the
+reference's one-subprocess-per-pair model (src/clusterer.rs:276-296
+short-circuits sequentially; on the device evaluating the whole
+candidate batch at once is faster).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The native TPU engine: preclusterer + clusterer.
+"""The native accelerator engine: preclusterer + clusterer.
 
 This replaces the reference's external skani and fastANI backends
 (src/skani.rs, src/fastani.rs). One engine context owns the sketch
@@ -8,7 +8,7 @@ FASTA files for every subprocess pair, src/skani.rs:718-788).
 
 Pipeline for `distances()` (triangle mode):
 1. sketch every genome (host, parallel; C++ fast path when available);
-2. MXU indicator-matmul screen over all pairs
+2. indicator-matmul screen over all pairs on the device
    (galah_tpu.ops.prefilter) with a conservative containment cutoff;
 3. fragment-containment verify of surviving pairs, batched
    one-query-many-refs (galah_tpu.ops.fragment_ani);
@@ -427,7 +427,7 @@ class NativeContext:
                 _pool_adopt,
                 _pool_fill_dense,
             )
-            from galah_tpu.ops.popcount_screen import pack_indicator
+            from galah_tpu.ops.prefilter import pack_indicator
 
             x = jnp.zeros((n_pad, w), jnp.uint32)
             by_batch: Dict[int, List[Tuple[int, int]]] = {}
@@ -500,10 +500,7 @@ class NativeContext:
             sink = _chain_sinks(self._device_sink(), extra_sink)
             for p, sk in zip(
                 missing,
-                device_sketch_files(
-                    missing, self.params, sink=sink,
-                    shadow_threads=self.threads,
-                ),
+                device_sketch_files(missing, self.params, sink=sink),
             ):
                 self._store.put(p, sk)
                 bases += sk.total_len
@@ -574,7 +571,6 @@ class NativeContext:
                         missing,
                         device_sketch_contig_files(
                             missing, self.params, sink=sink,
-                            shadow_threads=self.threads,
                         ),
                     ):
                         self._contig_store[path] = sks
@@ -609,26 +605,20 @@ class NativeContext:
 def _use_device_sketch() -> bool:
     """Whether the sketch stage runs on the accelerator.
 
-    GALAH_TPU_DEVICE_SKETCH=1/0 forces it; otherwise ON for any
-    non-CPU backend. Through round 3 this was gated on a measured
-    link-speed probe (device sketching's 2-bit upload only beat host
-    hashing when the link moved >=100MB/s), but the device-resident
-    pipeline changed the economics: device-born sketches feed the
-    screen matrix and verify caches with ZERO further upload, so
-    device sketching moves 0.25 bytes/base TOTAL where host sketching
-    moves ~0.75 bytes/base of sketch products (packed streams + member
-    buckets + pref rows) — a ~3x wire saving on ANY link speed, on top
-    of removing the host hashing stage. Cold-compile stalls are
-    shadowed by host sketching (ops/device_sketch.py::
-    device_sketch_files), so the old probe's remaining rationale is
-    gone. CPU backends keep host sketching (the 'device' would be the
-    same host, and the C++ sketcher is faster than XLA:CPU here)."""
+    GALAH_TPU_DEVICE_SKETCH=1/0 forces it. On the GPU it is on by
+    default: device-born sketches feed the screen matrix and verify
+    caches with no further upload, so the device path moves 0.25
+    bytes/base in total where host sketching moves ~0.75 bytes/base of
+    sketch products. On an H100 the two tie end to end on 3 Mb MAGs,
+    and the host sketcher was faster on 5 kb contigs (PERF.md). The CPU
+    backend keeps host sketching: the 'device' would be the same host,
+    and the C++ sketcher is faster than XLA:CPU."""
     env = os.environ.get("GALAH_TPU_DEVICE_SKETCH")
     if env is not None:
         return env == "1"
-    import jax
+    from galah_tpu.utils.platform import backend_default
 
-    return jax.default_backend() not in ("cpu",)
+    return backend_default(cpu=False, gpu=True)
 
 
 class _LazyIndicatorRows:
@@ -649,7 +639,7 @@ class _LazyPackedRows:
     """Packed uint32 bitmap rows materialized on access."""
 
     def __init__(self, sketches, bits: int) -> None:
-        from galah_tpu.ops.popcount_screen import pack_indicator
+        from galah_tpu.ops.prefilter import pack_indicator
 
         self._sketches = sketches
         self._bits = bits
@@ -667,18 +657,19 @@ class _LazyPackedRows:
 
 
 def _screen_backend() -> str:
-    """'packed' (accelerator default: packed upload + on-device unpack
-    + MXU matmul), 'indicator' (uint8 indicator upload + matmul; CPU
-    default — no transfer cost, no unpack work) or 'popcount' (Pallas
-    packed-bitmap VPU kernel). Env: GALAH_TPU_SCREEN."""
-    import os
-
+    """'packed' (GPU default: packed upload + on-device unpack + matrix
+    product) or 'indicator' (uint8 indicator upload + product; CPU
+    default — no transfer cost, no unpack work). Env: GALAH_TPU_SCREEN."""
     env = os.environ.get("GALAH_TPU_SCREEN")
     if env:
+        if env not in ("packed", "indicator"):
+            raise ValueError(
+                f"GALAH_TPU_SCREEN={env!r}: expected packed or indicator"
+            )
         return env
-    import jax
+    from galah_tpu.utils.platform import backend_default
 
-    return "indicator" if jax.default_backend() == "cpu" else "packed"
+    return backend_default(cpu="indicator", gpu="packed")
 
 
 def calibrated_ani_threshold(
@@ -744,7 +735,7 @@ class _VerifyFeeder:
     guarantee the grouped/pair-table split already makes); the final
     cache equals the one-batch _verify_pairs cache exactly.
 
-    chunk_pairs trades flush frequency against relay dispatch count:
+    chunk_pairs trades flush frequency against dispatch count:
     each flush groups its own pairs by source genome, so very small
     chunks would re-touch a stream per chunk. GALAH_TPU_VERIFY_FLUSH
     overrides (0 disables mid-sweep flushing: everything verifies in
@@ -998,7 +989,7 @@ class NativePreclusterer(PreclusterDistanceFinder, _VerifyMixin):
     def _pipeline_enabled(self, n_paths: int) -> bool:
         """Whether the sketch->screen overlap pipeline applies: the
         single-device resident packed screen fed by device sketching
-        (the TPU production path). Sharded multi-device sweeps,
+        (the single-GPU production path). Sharded multi-device sweeps,
         low-memory streaming, host sketching, and non-resident corpora
         keep the sequential phases. GALAH_TPU_PIPELINE=0 disables;
         =1 forces (testing on the CPU multi-device conftest)."""
@@ -1078,7 +1069,7 @@ class NativePreclusterer(PreclusterDistanceFinder, _VerifyMixin):
         sequential path (tests/test_pipeline_overlap.py)."""
         import time as _time
 
-        from galah_tpu.ops.popcount_screen import pack_indicator
+        from galah_tpu.ops.prefilter import pack_indicator
         from galah_tpu.ops.prefilter import IncrementalPackedScreen
 
         ctx = self.ctx
@@ -1213,7 +1204,7 @@ class NativePreclusterer(PreclusterDistanceFinder, _VerifyMixin):
             # Mesh-sharded query-block x ref-block tile sweep (SURVEY
             # P9): the rectangle scales with devices/hosts exactly like
             # the triangle — only sparse results leave a device.
-            from galah_tpu.ops.popcount_screen import pack_indicator
+            from galah_tpu.ops.prefilter import pack_indicator
             from galah_tpu.parallel.distance import (
                 sharded_screen_rectangle_packed,
             )
@@ -1244,7 +1235,7 @@ class NativePreclusterer(PreclusterDistanceFinder, _VerifyMixin):
                 min_cont,
             )
         else:
-            from galah_tpu.ops.popcount_screen import pack_indicator
+            from galah_tpu.ops.prefilter import pack_indicator
             from galah_tpu.ops.prefilter import screen_rectangle_packed
 
             bits = self.ctx.params.prefilter_bits
@@ -1356,23 +1347,6 @@ class NativePreclusterer(PreclusterDistanceFinder, _VerifyMixin):
                 checkpoint_path=getattr(self, "sweep_checkpoint", None),
                 unit_names=[s.name for s in sketches],
             )
-        elif _screen_backend() == "popcount":
-            # Pallas packed-bitmap kernel (VPU AND+popcount).
-            from galah_tpu.ops.popcount_screen import (
-                pack_indicator,
-                screen_triangle_popcount,
-            )
-
-            self._warn_checkpoint_unsupported("popcount")
-
-            bits = self.ctx.params.prefilter_bits
-            res = screen_triangle_popcount(
-                _LazyPackedRows(sketches, bits),
-                np.asarray([s.n_prefilter for s in sketches]),
-                k,
-                min_cont,
-                bits,
-            )
         elif _screen_backend() == "indicator":
             self._warn_checkpoint_unsupported("indicator")
             res = screen_triangle(
@@ -1383,7 +1357,7 @@ class NativePreclusterer(PreclusterDistanceFinder, _VerifyMixin):
                 cache_blocks=not self.ctx.low_memory,
             )
         else:
-            # Default: packed uint32 upload, on-device unpack, MXU
+            # Default: packed uint32 upload, on-device unpack, the
             # matmul (32x less host->device transfer than indicators).
             # Device-born sketch rows assemble the resident matrix
             # device-to-device (pref_matrix_builder) — zero re-upload.

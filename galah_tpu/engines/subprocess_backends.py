@@ -37,7 +37,7 @@ def check_for_binary(name: str) -> None:
     if shutil.which(name) is None:
         raise SystemExit(
             f"Error: the external tool '{name}' was not found on PATH. "
-            "Install it, or use the TPU-native engine "
+            "Install it, or use the native engine "
             "(--precluster-method native --cluster-method native)."
         )
 

@@ -1,7 +1,10 @@
 """ctypes bindings for the C++ fastaio library.
 
-The library is optional: every entry point has a numpy fallback with
-identical semantics (tests assert parity). Set GALAH_TPU_NO_NATIVE=1 to
+The library is built from native/fastaio.cpp at first use (`make -C
+native`, into a temporary name renamed into place, so concurrent
+first users never load a half-written file). It is optional: every
+entry point has a numpy fallback with identical semantics (tests
+assert parity), used when the build fails. Set GALAH_TPU_NO_NATIVE=1 to
 force the numpy path.
 """
 
@@ -20,15 +23,45 @@ _LIB = None
 _TRIED = False
 
 
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
+)
+LIB_NAME = "libfastaio.so"
+
+
+def _build_library() -> Optional[str]:
+    """Build native/libfastaio.so from the committed sources; returns
+    its path, or None when the build fails (no compiler, no zlib)."""
+    import subprocess
+    import threading
+
+    target = os.path.join(NATIVE_DIR, LIB_NAME)
+    tmp = f"{LIB_NAME}.tmp.{os.getpid()}.{threading.get_ident()}"
+    try:
+        proc = subprocess.run(
+            ["make", "-C", NATIVE_DIR, "--no-print-directory",
+             f"OUT={tmp}"],
+            capture_output=True, text=True,
+        )
+    except OSError as e:
+        logger.warning("cannot build the native library: %s", e)
+        return None
+    if proc.returncode != 0:
+        logger.warning(
+            "native library build failed; using the numpy fallback:\n%s",
+            proc.stderr[-2000:],
+        )
+        return None
+    os.replace(os.path.join(NATIVE_DIR, tmp), target)
+    return target
+
+
 def _find_library() -> Optional[str]:
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    candidates = [
-        os.path.join(here, "native", "libfastaio.so"),
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "libfastaio.so"),
-    ]
-    for c in candidates:
-        if os.path.exists(c):
-            return c
+    path = os.path.join(NATIVE_DIR, LIB_NAME)
+    if os.path.exists(path):
+        return path
+    if os.path.exists(os.path.join(NATIVE_DIR, "fastaio.cpp")):
+        return _build_library()
     return None
 
 

@@ -2,25 +2,21 @@
 
 Moves the sketch stage — the reference delegates it to skani/finch on
 host CPUs (src/skani.rs:270-290, src/finch.rs:55-72) and galah_tpu's
-default path runs it in threaded C++ (native/fastaio.cpp) — onto the
-TPU itself. One upload of 2-bit-encoded sequence per genome replaces
+host path runs it in threaded C++ (native/fastaio.cpp) — onto the
+accelerator itself. One upload of 2-bit-encoded sequence per genome replaces
 per-genome host hashing; canonical k-mer construction, the splitmix64
 finalizer, FracMinHash selection, bitmap construction and per-fragment
 dedup/compaction all run on device, bit-identical to the host
 implementation (galah_tpu/sketch/fracminhash.py, sketch/kmers.py).
 
-Why this is the TPU-native answer: k-mer hashing is pure elementwise
-integer arithmetic over the sequence — VPU work that XLA fuses into a
-handful of passes over the input. A single chip hashes sequence far
-faster than the host cores that feed it, so on production hosts the
-sketch phase stops being the pipeline bottleneck (benchmarks/RESULTS.md
-measures the 100k-contig config sketch-bound after the screen/verify
-rounds).
+Why on the device: k-mer hashing is pure elementwise integer
+arithmetic over the sequence, which XLA fuses into a handful of passes
+over the input; the device hashes sequence far faster than the host
+cores that feed it (PERF.md).
 
-TPUs have no native uint64, so the 64-bit splitmix64 finalizer runs on
-(hi, lo) uint32 lane pairs with exact carry propagation (validated
-element-for-element against the numpy uint64 implementation in
-tests/test_device_sketch.py).
+The 64-bit splitmix64 finalizer runs on (hi, lo) uint32 lane pairs
+with exact carry propagation (validated element-for-element against
+the numpy uint64 implementation in tests/test_device_sketch.py).
 
 Layout notes:
 - A genome's contigs are concatenated with one invalid byte between
@@ -37,16 +33,12 @@ Layout notes:
   adjacent-difference compaction, exactly np.unique on
   frag * member_bits + bucket without ever forming the 64-bit key.
 
-Performance shape (why the stages look the way they do): everything
-that is not elementwise — scatters, prefix sums, the sort — dominates
-on TPU, so the kernel pays full-sequence-length (n) cost exactly three
-times (the two compaction scatters and the fragment-bin prefix sum;
-the k-mer/hash math fuses into the same passes). Both genome-level
-bitmaps are built from the SEL-compacted stream (~fragment_scale x
-shorter than n) rather than scattering all n positions, prefix sums
-use the hierarchical 2D scan (XLA's long-axis cumsum is ~30x slower on
-TPU, see ops/pair_table.py::_fast_cumsum), and the dedup sort runs on
-a single combined uint32 key (frag << bucket_bits | bucket) whenever
+Two formulations compute the same outputs: _sketch_one (XLA sort and
+scatter; the default) and _sketch_one_routed (scatter-free monotone
+routing and bitonic networks, ops/routing.py; GALAH_TPU_SKETCH_KERNEL=
+routed). Prefix sums use the hierarchical 2D scan
+(ops/pair_table.py::_fast_cumsum), and the dedup sort runs on a single
+combined uint32 key (frag << bucket_bits | bucket) whenever
 max_frags * member_bits fits in 31 bits — always true for contig /
 small-genome sketches — falling back to the two-key sort for large
 multi-Mb genomes.
@@ -429,16 +421,8 @@ def _words_from_sorted(sv, first, bits: int):
 def _sketch_sort_scan() -> bool:
     """Whether the routed kernel's bitonic sorts compile as fori_loops
     (ops/routing.py::bitonic_sort_scan) instead of unrolled networks —
-    bit-identical results. MEASURED NO-GO as a default on the v5e
-    (round 4, fresh compile cache, 32x1Mb shape): the loop formulation
-    compiled SLOWER through the remote relay (792s vs 297.6s cold) and
-    ran 12% slower (189M vs 216M bases/s) — XLA:TPU's loop analysis
-    costs more than the straight-line graph it replaces, and the
-    dynamic-distance rolls defeat the static-layout optimization the
-    unrolled network gets. Kept behind GALAH_TPU_SKETCH_SORT=scan for
-    future toolchains; the production cold-compile answer is compile
-    shadowing (sketch on host while the device program compiles — see
-    engines/native.py) on top of the persistent compile cache."""
+    bit-identical results. Off unless GALAH_TPU_SKETCH_SORT=scan (the
+    routed kernel itself is off by default, see _default_routed)."""
     import os
 
     return os.environ.get("GALAH_TPU_SKETCH_SORT") == "scan"
@@ -458,12 +442,10 @@ def _sketch_one_routed(
 ):
     """Scatter-free formulation of _sketch_one (bit-identical outputs).
 
-    Every scatter/sort the profile blamed (RESULTS.md round-2 addendum
-    7: stream compaction 563ms, bitmap scatters 116-727ms, dedup sort
-    141ms per 33.5M-base batch — all at XLA's ~60-120M upd/s TPU
-    scatter floor) is replaced with monotone routings and hand-rolled
-    bitonic networks (ops/routing.py) that lower to shift+select
-    passes at VPU/HBM speed:
+    Every scatter and sort (stream compaction, bitmap scatters, dedup
+    sort) is replaced with monotone routings and hand-rolled bitonic
+    networks (ops/routing.py) that lower to shift+select passes; on
+    the GPU this formulation loses to _sketch_one (PERF.md):
 
     - stream compaction: log2(n) monotone-compact passes;
     - per-fragment dedup: one bitonic sort of the combined
@@ -637,13 +619,10 @@ def _frag_capacity(params: NativeSketchParams) -> int:
 
 
 def _default_frag_cap(params: NativeSketchParams) -> int:
-    """Dedup strategy default: the combined-key global sort, everywhere.
-
-    Measured on the v5e (benchmarks/device_sketch_profile.py, all
-    outputs consumed, 32 x 1Mb): global sort 1545ms/batch vs segmented
-    row sorts 1896ms — the (max_frags, frag_cap) grid's scatter into
-    row slots costs more than the bitonic economics save — and the CPU
-    comparison sort prefers the global path ~1.3x as well.
+    """Dedup strategy default: the combined-key global sort, everywhere
+    (the CPU's comparison sort prefers it ~1.3x over the segmented row
+    sorts; the GPU comparison is not measured yet —
+    benchmarks/device_sketch_profile.py times both).
     GALAH_TPU_SKETCH_DEDUP=segmented|sort overrides."""
     mode = os.environ.get("GALAH_TPU_SKETCH_DEDUP")
     if mode == "segmented":
@@ -656,17 +635,14 @@ def _next_pow2(x: int) -> int:
 
 
 def _default_routed() -> bool:
-    """Kernel-formulation default: the scatter-free routed kernel on
-    accelerators (where XLA scatter/sort lower to ~60-120M upd/s serial
-    loops), the XLA scatter kernel on CPU (where scatters run at memory
-    speed and the 171-stage bitonic would lose).
-    GALAH_TPU_SKETCH_KERNEL=routed|scatter overrides."""
-    mode = os.environ.get("GALAH_TPU_SKETCH_KERNEL")
-    if mode == "routed":
-        return True
-    if mode == "scatter":
-        return False
-    return jax.default_backend() != "cpu"
+    """Kernel-formulation default: the XLA sort/scatter kernel on the
+    CPU and on the GPU, where the scatter-free routed kernel (bitonic
+    networks + monotone routing, ops/routing.py) lost on an H100: 7.0x
+    slower at the MAG batch (8 x 3 Mb) and 6.7x at the contig batch
+    (4,096 x 5 kb), and 12x longer to compile (PERF.md, "Bring-up on
+    the H100"). GALAH_TPU_SKETCH_KERNEL=routed selects the routed
+    kernel."""
+    return os.environ.get("GALAH_TPU_SKETCH_KERNEL") == "routed"
 
 
 @dataclass
@@ -782,6 +758,36 @@ def device_sketch_batch(
         "device sketch compacts gsel as a subset of fsel "
         "(genome_scale must be >= fragment_scale)"
     )
+    plans, kernel_args, kernel_kw = _prepare_batch(seq_lists, params)
+    SEL = kernel_kw["max_sel"]
+    if _default_routed():
+        out = _sketch_batch_kernel(
+            *kernel_args, routed=True,
+            max_psel=kernel_kw.pop("max_psel"),
+            sort_scan=_sketch_sort_scan(),
+            **kernel_kw,
+        )
+    else:
+        kernel_kw.pop("max_psel")
+        out = _sketch_batch_kernel(
+            *kernel_args, frag_cap=_default_frag_cap(params), **kernel_kw
+        )
+    if bool(np.any(np.asarray(out[8]))):
+        # A fragment's (duplicate-inclusive) entry count blew past the
+        # segmented grid's row width — pathological low-complexity
+        # repeats. Re-dispatch on the global-sort path (bit-identical).
+        logger.info(
+            "segmented dedup overflow; re-dispatching on the "
+            "global-sort path"
+        )
+        out = _sketch_batch_kernel(*kernel_args, frag_cap=0, **kernel_kw)
+    return _finish_batch(names, plans, out, SEL, params, return_device)
+
+
+def _prepare_batch(seq_lists, params: NativeSketchParams):
+    """Host prep for one device-sketch dispatch: per-genome plans, the
+    kernel's device operands and its static arguments (max_psel is
+    used by the routed formulation only)."""
     plans = [_plan_genome(s, params) for s in seq_lists]
     G = len(plans)
     max_len = max((p.codes.shape[0] for p in plans), default=1)
@@ -829,27 +835,14 @@ def device_sketch_batch(
         fthresh=int(params.fragment_threshold),
         max_frags=F,
         max_sel=SEL,
+        max_psel=_psel_capacity(P - params.k + 1, params),
     )
-    if _default_routed():
-        out = _sketch_batch_kernel(
-            *kernel_args, routed=True,
-            max_psel=_psel_capacity(P - params.k + 1, params),
-            sort_scan=_sketch_sort_scan(),
-            **kernel_kw,
-        )
-    else:
-        out = _sketch_batch_kernel(
-            *kernel_args, frag_cap=_default_frag_cap(params), **kernel_kw
-        )
-    if bool(np.any(np.asarray(out[8]))):
-        # A fragment's (duplicate-inclusive) entry count blew past the
-        # segmented grid's row width — pathological low-complexity
-        # repeats. Re-dispatch on the global-sort path (bit-identical).
-        logger.info(
-            "segmented dedup overflow; re-dispatching on the "
-            "global-sort path"
-        )
-        out = _sketch_batch_kernel(*kernel_args, frag_cap=0, **kernel_kw)
+    return plans, kernel_args, kernel_kw
+
+
+def _finish_batch(names, plans, out, SEL, params, return_device):
+    """Overflow check, count fetch and host sketch objects for one
+    dispatched batch (see device_sketch_batch)."""
     (pref_words, n_pref, member_words, member_pop,
      flat, offsets, n_unique, overflow, _) = out
     if bool(np.any(np.asarray(overflow))):
@@ -944,170 +937,30 @@ def _batch_genome_cap(P: int, params: NativeSketchParams) -> int:
 
 
 
-# Device threads abandoned to the background (their compile still
-# populating the persistent cache) are joined at interpreter exit:
-# tearing down the process mid-XLA-compile segfaults in LLVM. In a
-# real run the compile finishes long before the pipeline does; only a
-# process that exits immediately after sketching waits here.
-_ABANDONED_THREADS: List = []
-
-
-def _join_abandoned_at_exit() -> None:
-    for t in _ABANDONED_THREADS:
-        if t.is_alive():
-            logger.info(
-                "waiting for a background sketch compile to finish "
-                "before exit (persistent-cache warm-up)"
-            )
-            t.join(timeout=1800)
-    _ABANDONED_THREADS.clear()
-
-
-def _run_shadowed(
-    n_chunks: int,
-    read_chunk,
-    process_on_device,
-    process_on_host,
-    all_done,
-    shadow_threads: int,
-    on_abandon=None,
-):
-    """Claim/steal scaffold shared by the genome- and contig-file
-    device sketchers (see device_sketch_files for the full rationale):
-    a device worker thread processes chunks front-to-back with
-    claim-ahead read prefetch; after a grace window, a host shadow
-    claims chunks from the END (and finally steals the device's
-    in-flight chunks) so a cold kernel compile never stalls the
-    pipeline; if the host completes everything first the call returns
-    immediately and the device compile finishes in the background.
-
-    read_chunk(ci) -> data (host reading); process_on_device(ci, data)
-    and process_on_host(ci, executor) fill the caller's outputs
-    (bit-identical, so double-computation of stolen chunks is benign);
-    all_done() -> bool over the caller's outputs. Returns True when
-    the device worker was abandoned to the background (callers then
-    must gate any late cache adoption — see the guarded sink)."""
-    import threading
+def _run_chunks(n_chunks: int, read_chunk, process_on_device) -> None:
+    """Process chunks front to back on the calling thread while a
+    reader thread prefetches the next chunk's FASTA (reading rivals
+    hashing on production hosts). Exceptions from either side
+    propagate to the caller."""
     from concurrent.futures import ThreadPoolExecutor
 
-    lock = threading.Lock()
-    claimed = [False] * n_chunks
-    in_flight: dict = {}
-    device_hot = threading.Event()
-    first_read_done = threading.Event()
+    if n_chunks == 0:
+        return
+    with ThreadPoolExecutor(max_workers=1) as reader:
+        fut = reader.submit(read_chunk, 0)
+        for ci in range(n_chunks):
+            data = fut.result()
+            if ci + 1 < n_chunks:
+                fut = reader.submit(read_chunk, ci + 1)
+            process_on_device(ci, data)
 
-    def claim(from_end: bool):
-        with lock:
-            order = (
-                range(n_chunks - 1, -1, -1) if from_end
-                else range(n_chunks)
-            )
-            for ci in order:
-                if not claimed[ci]:
-                    claimed[ci] = True
-                    return ci
-        return None
 
-    def device_worker():
-        with ThreadPoolExecutor(max_workers=1) as reader:
-            ci = claim(from_end=False)
-            if ci is None:
-                device_hot.set()
-                first_read_done.set()
-                return
-            in_flight[ci] = True
-            fut = reader.submit(read_chunk, ci)
-            while True:
-                data = fut.result()
-                first_read_done.set()
-                nci = claim(from_end=False)
-                if nci is not None:
-                    in_flight[nci] = True
-                    nfut = reader.submit(read_chunk, nci)
-                process_on_device(ci, data)
-                in_flight.pop(ci, None)
-                device_hot.set()
-                if nci is None:
-                    return
-                ci, fut = nci, nfut
+def _count_host_fallback(n_units: int) -> None:
+    """Metrics counter for units sketched on the host after a
+    DeviceSketchOverflow (bit-identical; a capacity rule)."""
+    from galah_tpu.utils import metrics
 
-    shadow = (
-        shadow_threads > 0
-        and n_chunks >= 1
-        and os.environ.get("GALAH_TPU_SKETCH_SHADOW", "1") != "0"
-    )
-    if not shadow:
-        device_worker()
-        return False
-
-    # Worker failures must not be swallowed: capture the exception and
-    # re-raise it from the caller's thread when chunks remain
-    # unprocessed. first_read_done unblocks the main thread's wait; NOT
-    # setting device_hot lets the host shadow engage after the grace
-    # window and (bit-identically) finish the corpus when it can.
-    worker_exc: List[BaseException] = []
-    worker_finished = threading.Event()
-
-    def device_worker_guarded():
-        try:
-            device_worker()
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            worker_exc.append(e)
-            first_read_done.set()
-        finally:
-            worker_finished.set()
-
-    dev_t = threading.Thread(target=device_worker_guarded, daemon=True)
-    dev_t.start()
-
-    # The grace clock starts when the first chunk's READ completes —
-    # a slow FASTA read is not a compile stall, and a needlessly
-    # engaged shadow costs GIL contention and device residency.
-    grace = float(os.environ.get("GALAH_TPU_SHADOW_GRACE", "30"))
-    done_chunks = 0
-    first_read_done.wait()
-    if not device_hot.wait(timeout=grace):
-        with ThreadPoolExecutor(max_workers=shadow_threads) as ex:
-            while not device_hot.is_set():
-                ci = claim(from_end=True)
-                if ci is None:
-                    break
-                process_on_host(ci, ex)
-                done_chunks += 1
-            if not device_hot.is_set():
-                for ci in list(in_flight):
-                    process_on_host(ci, ex)
-                    done_chunks += 1
-    if done_chunks:
-        logger.info(
-            "compile shadow: host sketched %d/%d chunks while the "
-            "device program compiled", done_chunks, n_chunks,
-        )
-    while dev_t.is_alive():
-        # A worker that set its finished flag is exiting normally —
-        # join it rather than spuriously logging "host finished first"
-        # and registering an abandoned-thread atexit join.
-        if worker_finished.is_set():
-            break
-        if all_done():
-            if on_abandon is not None:
-                on_abandon()
-            if not _ABANDONED_THREADS:
-                import atexit
-
-                atexit.register(_join_abandoned_at_exit)
-            _ABANDONED_THREADS.append(dev_t)
-            logger.info(
-                "compile shadow: host finished the corpus first; "
-                "leaving the device compile to finish in the "
-                "background (persistent-cache warm-up)"
-            )
-            return True
-        dev_t.join(timeout=0.25)
-    dev_t.join()
-    if worker_exc and not all_done():
-        raise worker_exc[0]
-    return False
+    metrics.current().count("sketch_host_fallback_units", n_units)
 
 
 def device_sketch_contig_files(
@@ -1116,7 +969,6 @@ def device_sketch_contig_files(
     *,
     max_batch_bytes: int = 256 << 20,
     sink=None,
-    shadow_threads: int = 0,
 ) -> List[List[NativeSketch]]:
     """One sketch per contig, per file, in file order — the device
     analog of sketch_contigs_native for --cluster-contigs (reference
@@ -1150,10 +1002,7 @@ def device_sketch_contig_files(
 
     # Pass 2 — dispatch per bucket chunk; entries within a bucket are
     # in (file, contig) order, so each chunk touches a contiguous run
-    # of files and each (chunk, file) pair is read once. The chunk loop
-    # runs under the shared compile-shadow scaffold (_run_shadowed):
-    # cold kernel compiles are hidden by host sketching, as in
-    # device_sketch_files.
+    # of files and each (chunk, file) pair is read once.
     chunk_descs: List[List[Tuple[int, int]]] = []
     for P, items in sorted(buckets.items()):
         per = max(
@@ -1165,24 +1014,12 @@ def device_sketch_contig_files(
 
     import threading
 
-    sink_lock = threading.Lock()
-    abandoned = threading.Event()
-
-    if sink is not None:
-        def guarded_sink(names, sketches, dev, _sink=sink):
-            with sink_lock:
-                if not abandoned.is_set():
-                    _sink(names, sketches, dev)
-    else:
-        guarded_sink = None
-
     # Forward read cursors: within a length bucket, chunks visit a
     # file's contigs in ascending order, so a persistent per-file
     # iterator turns the old start-from-record-0 re-parse (O(chunks x
     # file) — ~20 full passes over a 100k-contig FASTA) into one
-    # sequential pass per bucket run. A request BEHIND the cursor
-    # (next bucket, or the compile shadow claiming from the END of
-    # the queue) restarts that file's iterator — correct either way,
+    # sequential pass per bucket run. A request BEHIND the cursor (the
+    # next bucket) restarts that file's iterator — correct either way,
     # the cursor is purely a fast path. Each live iterator pins an
     # open file descriptor, so the cache is LRU-bounded (a
     # thousand-file contig corpus must not exhaust ulimit), and a
@@ -1231,11 +1068,11 @@ def device_sketch_contig_files(
         cnames, clists = data
         chunk = chunk_descs[ci]
         try:
-            if guarded_sink is not None:
+            if sink is not None:
                 got_sk, dev = device_sketch_batch(
                     cnames, clists, params, return_device=True
                 )
-                guarded_sink(cnames, got_sk, dev)
+                sink(cnames, got_sk, dev)
             else:
                 got_sk = device_sketch_batch(cnames, clists, params)
         except DeviceSketchOverflow:
@@ -1244,6 +1081,7 @@ def device_sketch_contig_files(
                 "falling back to host sketching",
                 len(chunk),
             )
+            _count_host_fallback(len(chunk))
             got_sk = [
                 sketch_sequences_native(n, s, params)
                 for n, s in zip(cnames, clists)
@@ -1251,32 +1089,9 @@ def device_sketch_contig_files(
         for (pi, cj), sk in zip(chunk, got_sk):
             out[pi][cj] = sk
 
-    def process_on_host(ci, ex):
-        cnames, clists = read_chunk(ci)
-        for (pi, cj), sk in zip(
-            chunk_descs[ci],
-            ex.map(
-                lambda t: sketch_sequences_native(t[0], t[1], params),
-                zip(cnames, clists),
-            ),
-        ):
-            out[pi][cj] = sk
-
-    def all_done():
-        return all(sk is not None for row in out for sk in row)
-
-    def on_abandon():
-        with sink_lock:
-            abandoned.set()
-
-    _run_shadowed(
-        len(chunk_descs), read_chunk, process_on_device,
-        process_on_host, all_done, shadow_threads, on_abandon=on_abandon,
-    )
-    assert all_done()
-    # Snapshot: an abandoned device thread may still write identical-
-    # value entries after return.
-    return [list(row) for row in out]  # type: ignore[return-value]
+    _run_chunks(len(chunk_descs), read_chunk, process_on_device)
+    assert all(sk is not None for row in out for sk in row)
+    return out  # type: ignore[return-value]
 
 
 def _words_to_buckets(words: np.ndarray) -> np.ndarray:
@@ -1289,28 +1104,30 @@ def _words_to_buckets(words: np.ndarray) -> np.ndarray:
 
 # --- narrow sketch-product transport -------------------------------
 # The host copies of a batch's sketch products (member/prefilter word
-# bitmaps + the int32 flat stream) dominate the sketch phase on the
-# remote relay: a 100k x 3kb-contig run fetches ~18KB/contig (~1.8GB)
-# while the information content is a few KB of bucket indices. When
-# profitable, a post-pass converts the word bitmaps to ascending
-# bucket LISTS on device (the host-side _words_to_buckets, computed
-# where the data already is) and narrows every list to 2 or 3 bytes
-# per entry; the whole chunk then fetches as ONE uint8 buffer.
-# GALAH_TPU_SKETCH_TRANSPORT=words|lists overrides the default
-# (lists on accelerators, words on CPU where fetches are free).
+# bitmaps + the int32 flat stream) can dominate the sketch phase's
+# device->host traffic: a 100k x 3kb-contig run fetches ~18KB/contig
+# (~1.8GB) while the information content is a few KB of bucket
+# indices. When profitable, a post-pass converts the word bitmaps to
+# ascending bucket LISTS on device (the host-side _words_to_buckets,
+# computed where the data already is) and narrows every list to 2 or 3
+# bytes per entry; the whole chunk then fetches as ONE uint8 buffer.
+# GALAH_TPU_SKETCH_TRANSPORT=words|lists overrides the default (words
+# on CPU where fetches are free; the GPU's choice is measured end to
+# end in PERF.md).
 
 
 def _transport_mode() -> str:
     mode = os.environ.get("GALAH_TPU_SKETCH_TRANSPORT")
     if mode in ("words", "lists"):
         return mode
-    return "words" if jax.default_backend() == "cpu" else "lists"
+    from galah_tpu.utils.platform import backend_default
+
+    return backend_default(cpu="words", gpu="lists")
 
 
 def _batched_fast_cumsum(x: jax.Array) -> jax.Array:
     """Minor-axis inclusive prefix sum for (..., N) int32 via the
-    (rows, 8192) hierarchical scan (XLA's one-long-axis cumsum is ~30x
-    slower on TPU; see ops/pair_table._fast_cumsum)."""
+    (rows, 8192) hierarchical scan (see ops/pair_table._fast_cumsum)."""
     n = x.shape[-1]
     cols = 8192
     if n <= cols or n % cols:
@@ -1493,21 +1310,38 @@ def _fetch_product_arrays(member_words, pref_words, flat, counts, params):
 # each chunk's product fetch until some consumer actually touches
 # array CONTENT (store persistence, multi-process exchange, host
 # fallbacks); lengths/popcounts stay free via the eager counts fetch.
-# Pinned device products are bounded: past _LAZY_PIN_BUDGET bytes the
-# oldest pending chunk is materialized and released.
+# Pinned device products are bounded: past LAZY_PIN_SHARE of the device
+# memory limit the oldest pending chunk is materialized and released.
+# The registry holds chunks weakly (oldest first): a chunk whose
+# sketches are all gone releases its device buffers with them, so a
+# finished run leaves nothing pinned on the device.
 
-_LAZY_PIN_BUDGET = 2 << 30
-_LAZY_PENDING: List = []
+LAZY_PIN_SHARE = 1 / 8
+import itertools as _itertools
 import threading as _threading
+import weakref as _weakref
+
+_LAZY_PENDING: "_weakref.WeakValueDictionary" = _weakref.WeakValueDictionary()
+_LAZY_SEQ = _itertools.count()
 
 _LAZY_LOCK = _threading.Lock()
 
 
 def _host_copies_mode() -> str:
+    """eager on the CPU; on the GPU the end-to-end A/B in PERF.md
+    decides. GALAH_TPU_SKETCH_HOST_COPIES=eager|lazy overrides."""
     mode = os.environ.get("GALAH_TPU_SKETCH_HOST_COPIES")
     if mode in ("eager", "lazy"):
         return mode
-    return "eager" if jax.default_backend() == "cpu" else "lazy"
+    from galah_tpu.utils.platform import backend_default
+
+    return backend_default(cpu="eager", gpu="lazy")
+
+
+def _lazy_pin_budget() -> int:
+    from galah_tpu.utils.platform import device_memory_limit
+
+    return int(device_memory_limit() * LAZY_PIN_SHARE)
 
 
 class _LazyChunk:
@@ -1519,6 +1353,7 @@ class _LazyChunk:
         self._params = params
         self._per = None
         self._lock = _threading.Lock()
+        self._seq = next(_LAZY_SEQ)
         self.nbytes = sum(
             int(np.prod(a.shape)) * a.dtype.itemsize for a in self._dev
         )
@@ -1531,10 +1366,7 @@ class _LazyChunk:
                 )
                 self._dev = None  # release device buffers
                 with _LAZY_LOCK:
-                    try:
-                        _LAZY_PENDING.remove(self)
-                    except ValueError:
-                        pass
+                    _LAZY_PENDING.pop(self._seq, None)
             return self._per
 
 
@@ -1543,14 +1375,16 @@ def _register_lazy_chunk(chunk: "_LazyChunk") -> None:
     # thread materializes first — guard the registry (the chunk's own
     # lock serializes its fetch; get() self-removes).
     with _LAZY_LOCK:
-        _LAZY_PENDING.append(chunk)
+        _LAZY_PENDING[chunk._seq] = chunk
     while True:
         with _LAZY_LOCK:
+            pending = list(_LAZY_PENDING.values())
             over = (
-                sum(c.nbytes for c in _LAZY_PENDING) > _LAZY_PIN_BUDGET
-                and len(_LAZY_PENDING) > 1
+                sum(c.nbytes for c in pending) > _lazy_pin_budget()
+                and len(pending) > 1
             )
-            oldest = _LAZY_PENDING[0] if over else None
+            oldest = pending[0] if over else None
+            del pending
         if oldest is None or oldest is chunk:
             return
         oldest.get()  # materialize + release the oldest
@@ -1615,7 +1449,6 @@ def device_sketch_files(
     *,
     max_batch_bytes: int = 32 << 20,
     sink=None,
-    shadow_threads: int = 0,
 ) -> List[NativeSketch]:
     """Sketch whole genome files on device.
 
@@ -1626,10 +1459,8 @@ def device_sketch_files(
     selected-hash capacity fall back to the host sketcher — results are
     bit-identical either way, so mixing paths is safe.
 
-    Opt-in via GALAH_TPU_DEVICE_SKETCH=1 (engines/native.py): on hosts
-    with fast interconnect to the accelerator this removes the host
-    hashing stage entirely; on a thin tunnel the sequence upload costs
-    more than host hashing saves.
+    The default on the GPU (engines/native.py::_use_device_sketch;
+    GALAH_TPU_DEVICE_SKETCH=0 turns it off).
     """
     from galah_tpu.io.fasta import read_fasta_sequences
 
@@ -1650,9 +1481,7 @@ def device_sketch_files(
     # Pass 2 — re-read per dispatched batch, prefetching the next
     # batch's FASTA on a reader thread while the device computes the
     # current one (read time rivals hash time on production hosts).
-    # Chunks target ~32MB of padded sequence (the measured-efficient
-    # 32x1Mb batch shape) so a corpus spans several dispatches — which
-    # also gives COMPILE SHADOWING something to chew on (below).
+    # Chunks target ~32MB of padded sequence.
     chunks: List[List[int]] = []
     for P, idxs in sorted(buckets.items()):
         per = max(
@@ -1662,29 +1491,6 @@ def device_sketch_files(
         for start in range(0, len(idxs), per):
             chunks.append(idxs[start : start + per])
 
-    import threading
-
-    # Compile shadowing (see _run_shadowed): a cold compile of the
-    # routed kernel costs minutes through a remote-compile relay; the
-    # device loop runs on a worker thread while the host shadow (after
-    # a grace window) sketches chunks from the END of the queue with
-    # the bit-identical C++/numpy sketcher, steals the device's
-    # in-flight chunks if needed, and lets the call return as soon as
-    # the corpus is done — the background compile still lands in the
-    # persistent cache, with its late results discarded (identical
-    # values) and cache adoption abandoned under a lock.
-    # GALAH_TPU_SKETCH_SHADOW=0 disables; GALAH_TPU_SHADOW_GRACE tunes.
-    sink_lock = threading.Lock()
-    abandoned = threading.Event()
-
-    if sink is not None:
-        def guarded_sink(names, sketches, dev, _sink=sink):
-            with sink_lock:
-                if not abandoned.is_set():
-                    _sink(names, sketches, dev)
-    else:
-        guarded_sink = None
-
     def read_chunk(ci):
         return [read_fasta_sequences(paths[i]) for i in chunks[ci]]
 
@@ -1692,14 +1498,14 @@ def device_sketch_files(
         chunk = chunks[ci]
         names = [paths[i] for i in chunk]
         try:
-            if guarded_sink is not None:
+            if sink is not None:
                 sketches, dev = device_sketch_batch(
                     names, lists, params, return_device=True
                 )
                 # Hand the on-device products (bitmaps, streams,
                 # offsets) to the caller BEFORE any host use so the
                 # downstream pipeline never re-uploads them.
-                guarded_sink(names, sketches, dev)
+                sink(names, sketches, dev)
             else:
                 sketches = device_sketch_batch(names, lists, params)
         except DeviceSketchOverflow:
@@ -1708,6 +1514,7 @@ def device_sketch_files(
                 "falling back to host sketching",
                 len(chunk),
             )
+            _count_host_fallback(len(chunk))
             from galah_tpu.sketch.fracminhash import (
                 sketch_sequences_native,
             )
@@ -1719,30 +1526,6 @@ def device_sketch_files(
         for i, sk in zip(chunk, sketches):
             out[i] = sk
 
-    def process_on_host(ci, ex):
-        from galah_tpu.sketch.fracminhash import sketch_file_native
-
-        for i, sk in zip(
-            chunks[ci],
-            ex.map(
-                lambda i: sketch_file_native(paths[i], params),
-                chunks[ci],
-            ),
-        ):
-            out[i] = sk
-
-    def all_done():
-        return all(sk is not None for sk in out)
-
-    def on_abandon():
-        with sink_lock:
-            abandoned.set()
-
-    _run_shadowed(
-        len(chunks), read_chunk, process_on_device, process_on_host,
-        all_done, shadow_threads, on_abandon=on_abandon,
-    )
-    assert all_done()
-    # Snapshot: an abandoned device thread may still write identical-
-    # value entries into `out` after we return.
-    return list(out)  # type: ignore[return-value]
+    _run_chunks(len(chunks), read_chunk, process_on_device)
+    assert all(sk is not None for sk in out)
+    return out  # type: ignore[return-value]

@@ -2,14 +2,14 @@
 
 The packed bitmap matrix is made resident on every device (replicated;
 at the 300k-genome north star with shrunk bitmaps this is ~1-5GB, well
-inside a v5e's 16GB HBM) and the upper-triangle TILE list is sharded
+inside one GPU's memory) and the upper-triangle TILE list is sharded
 across the mesh: each device sweeps its own (block x block) tiles with
-the MXU intersection matmul and extracts the sparse above-cutoff pairs
+the intersection matmul and extracts the sparse above-cutoff pairs
 ON DEVICE. Only (count, idx, idx, val) tuples bounded by `cap` per tile
 ever leave a device, so host memory is O(candidates), never O(n^2) —
 the property that lets the screen reach the reference's "arbitrarily
 many genomes" configs (skani's sketch-then-stream search,
-reference src/skani.rs:229-377) at TPU speed.
+reference src/skani.rs:229-377) at device speed.
 
 Dispatches are chunked (fixed tile count per dispatch -> one compiled
 shape) and drained through a bounded in-flight window. Multi-host runs

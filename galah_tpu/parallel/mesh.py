@@ -1,7 +1,7 @@
 """Device mesh construction.
 
 The reference's only parallelism is a rayon thread pool
-(src/cluster_argument_parsing.rs:557-561); the TPU equivalent is a
+(src/cluster_argument_parsing.rs:557-561); the device equivalent is a
 jax.sharding.Mesh over the available devices. One logical axis "rows"
 shards genomes (data parallel); an optional second axis "buckets"
 shards the sketch indicator width (tensor parallel analog), with
@@ -22,9 +22,9 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed for multi-host pod slices. On Cloud
-    TPU pods arguments are auto-detected from the environment; pass
-    them explicitly elsewhere. Call once per process before any other
+    """Initialize jax.distributed for multi-process runs. Pass the
+    coordinator address (e.g. localhost:<port>), process count and
+    process id explicitly. Call once per process before any other
     JAX operation; `make_mesh()` then sees every host's devices."""
     import jax
 

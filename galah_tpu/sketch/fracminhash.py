@@ -1,4 +1,4 @@
-"""FracMinHash sketching for the native TPU engine.
+"""FracMinHash sketching for the native engine.
 
 The native engine replaces the reference's external skani/fastANI
 processes (src/skani.rs, src/fastani.rs) with an on-device two-stage
@@ -6,7 +6,7 @@ estimator:
 
 1. genome-level FracMinHash (keep hashes h < 2**64/scale) packed into a
    fixed-width bucket indicator — the all-vs-all screen runs as a
-   blocked indicator matmul on the MXU;
+   blocked indicator matmul on the device;
 2. fragment-level denser FracMinHash, assigned to fixed-length
    fragments — per-fragment containment against the other genome's
    membership bitmap yields per-fragment identity, giving ANI and a

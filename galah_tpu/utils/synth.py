@@ -176,13 +176,21 @@ def write_fasta_contigs(
                 f.write("\n")
 
 
+def _fasta_record(seq: np.ndarray, name: str, width: int = 80) -> bytes:
+    """One FASTA record: header line, then `width`-base lines."""
+    seq = np.asarray(seq, dtype=np.uint8)
+    full = len(seq) // width * width
+    rows = np.concatenate(
+        [seq[:full].reshape(-1, width),
+         np.full((full // width, 1), ord("\n"), np.uint8)], axis=1,
+    ).tobytes()
+    tail = seq[full:].tobytes() + b"\n" if full < len(seq) else b""
+    return f">{name}\n".encode() + rows + tail
+
+
 def write_fasta(path: str, seq: np.ndarray, name: str, width: int = 80) -> None:
-    with open(path, "w") as f:
-        f.write(f">{name}\n")
-        b = seq.tobytes()
-        for i in range(0, len(b), width):
-            f.write(b[i : i + width].decode("ascii"))
-            f.write("\n")
+    with open(path, "wb") as f:
+        f.write(_fasta_record(seq, name, width))
 
 
 def make_contig_corpus(
@@ -199,17 +207,13 @@ def make_contig_corpus(
     rng = np.random.default_rng(seed)
     names: List[str] = []
     family_ids: List[int] = []
-    with open(path, "w") as f:
+    with open(path, "wb") as f:
         for fam in range(n_families):
             base = random_genome(rng, contig_length)
             for m in range(members_per_family):
                 seq = base if m == 0 else mutate(rng, base, within_ani)
                 name = f"fam{fam}_c{m}"
-                f.write(f">{name}\n")
-                b = seq.tobytes()
-                for i in range(0, len(b), 80):
-                    f.write(b[i : i + 80].decode("ascii"))
-                    f.write("\n")
+                f.write(_fasta_record(seq, name))
                 names.append(name)
                 family_ids.append(fam)
     return names, family_ids

@@ -358,7 +358,7 @@ def test_device_arrays_match_host_derivation():
     )
     assert int(arrays["member_pop"][0]) == host.member_popcount
     assert int(arrays["n_pref"][0]) == host.n_prefilter
-    from galah_tpu.ops.popcount_screen import pack_indicator
+    from galah_tpu.ops.prefilter import pack_indicator
 
     np.testing.assert_array_equal(
         np.asarray(arrays["pref_words"][0]),
@@ -440,7 +440,7 @@ def test_use_device_sketch_gate(monkeypatch):
 
 def test_sort_scan_formulation_bit_identical(monkeypatch):
     """The fori_loop sort formulation (GALAH_TPU_SKETCH_SORT=scan,
-    kept as an option; measured NO-GO as a default on the v5e) must
+    kept as an option, off by default) must
     produce sketches bit-identical to the
     unrolled network (the compile-time fix must not change results)."""
     from galah_tpu.ops.device_sketch import device_sketch_batch
@@ -460,112 +460,17 @@ def test_sort_scan_formulation_bit_identical(monkeypatch):
         _assert_sketch_equal(b, s)
 
 
-def test_compile_shadowing_correct_and_engaged(tmp_path, monkeypatch):
-    """While the first device batch is stalled (compile stand-in: a
-    slowed dispatch), the host shadow claims tail chunks; the combined
-    output must equal pure host sketching for every genome, and the
-    shadow must actually have claimed work."""
-    import time
-
-    import galah_tpu.ops.device_sketch as ds
-    from galah_tpu.sketch.fracminhash import sketch_file_native
-
-    rng = np.random.default_rng(31)
-    params = _params_medium()
+def _genome_files(tmp_path, rng, n, length, step=0):
     paths = []
-    for i in range(12):
+    for i in range(n):
         p = tmp_path / f"g{i}.fna"
         with open(p, "w") as f:
-            f.write(">c0\n" + _random_seq(rng, 6000 + 13 * i).decode() + "\n")
+            f.write(">c0\n" + _random_seq(rng, length + step * i).decode() + "\n")
         paths.append(str(p))
-
-    calls = []
-    orig = ds.device_sketch_batch
-
-    def slow_batch(*a, **k):
-        if not calls:
-            time.sleep(0.5)  # first dispatch "compiles"
-        calls.append(len(a[0]))
-        return orig(*a, **k)
-
-    monkeypatch.setattr(ds, "device_sketch_batch", slow_batch)
-    # tiny grace so the 0.5s "compile" counts as a stall
-    monkeypatch.setenv("GALAH_TPU_SHADOW_GRACE", "0.05")
-    # tiny chunks -> many of them -> the shadow has a tail to eat
-    got = ds.device_sketch_files(
-        paths, params, max_batch_bytes=1 << 14, shadow_threads=2
-    )
-    ds._join_abandoned_at_exit()  # don't leak the background thread
-    hosts = [sketch_file_native(p, params) for p in paths]
-    for g, h in zip(got, hosts):
-        assert g.name == h.name
-        _assert_sketch_equal(g, h)
-    # the device did NOT process every chunk (shadow claimed some)
-    assert sum(calls) < len(paths), calls
+    return paths
 
 
-def test_compile_shadowing_kill_switch(tmp_path, monkeypatch):
-    import galah_tpu.ops.device_sketch as ds
-    from galah_tpu.sketch.fracminhash import sketch_file_native
-
-    monkeypatch.setenv("GALAH_TPU_SKETCH_SHADOW", "0")
-    rng = np.random.default_rng(32)
-    params = _params_medium()
-    paths = []
-    for i in range(4):
-        p = tmp_path / f"g{i}.fna"
-        with open(p, "w") as f:
-            f.write(">c0\n" + _random_seq(rng, 5000).decode() + "\n")
-        paths.append(str(p))
-    got = ds.device_sketch_files(
-        paths, params, max_batch_bytes=1 << 13, shadow_threads=2
-    )
-    for g, h in zip(got, (sketch_file_native(p, params) for p in paths)):
-        _assert_sketch_equal(g, h)
-
-
-def test_shadow_grace_keeps_warm_runs_device_resident(tmp_path, monkeypatch):
-    """A device whose first batch lands within the grace window must
-    keep ALL chunks device-processed (no shadow claims: host-claimed
-    chunks would lose residency and re-upload at verify)."""
-    import galah_tpu.ops.device_sketch as ds
-
-    rng = np.random.default_rng(33)
-    params = _params_medium()
-    paths = []
-    for i in range(8):
-        p = tmp_path / f"g{i}.fna"
-        with open(p, "w") as f:
-            f.write(">c0\n" + _random_seq(rng, 4000).decode() + "\n")
-        paths.append(str(p))
-
-    calls = []
-    orig = ds.device_sketch_batch
-
-    def counting(*a, **k):
-        calls.append(len(a[0]))
-        return orig(*a, **k)
-
-    monkeypatch.setattr(ds, "device_sketch_batch", counting)
-    monkeypatch.setenv("GALAH_TPU_SHADOW_GRACE", "30")
-    got = ds.device_sketch_files(
-        paths, params, max_batch_bytes=1 << 13, shadow_threads=2
-    )
-    assert sum(calls) == len(paths), calls  # every chunk on device
-    assert all(g is not None for g in got)
-
-
-def test_contig_shadowing_correct(tmp_path, monkeypatch):
-    """Contig-mode compile shadowing: a stalled first device batch must
-    leave outputs bit-identical to pure host sketching (the shared
-    _run_shadowed scaffold, contig leg)."""
-    import time
-
-    import galah_tpu.ops.device_sketch as ds
-    from galah_tpu.sketch.fracminhash import sketch_contigs_native
-
-    rng = np.random.default_rng(41)
-    params = _params_medium()
+def _contig_files(tmp_path, rng):
     paths = []
     for i in range(3):
         p = tmp_path / f"f{i}.fna"
@@ -574,27 +479,87 @@ def test_contig_shadowing_correct(tmp_path, monkeypatch):
                 f.write(f">c{i}_{j}\n")
                 f.write(_random_seq(rng, 2000 + 37 * j).decode() + "\n")
         paths.append(str(p))
+    return paths
 
+
+def test_device_sketch_files_chunked_matches_host(tmp_path):
+    """Many small chunks (reader prefetch ahead of the device loop)
+    must equal host sketching for every genome, in input order."""
+    import galah_tpu.ops.device_sketch as ds
+    from galah_tpu.sketch.fracminhash import sketch_file_native
+
+    params = _params_medium()
+    paths = _genome_files(tmp_path, np.random.default_rng(31), 12, 6000, 13)
+    got = ds.device_sketch_files(paths, params, max_batch_bytes=1 << 14)
+    for g, p in zip(got, paths):
+        h = sketch_file_native(p, params)
+        assert g.name == h.name
+        _assert_sketch_equal(g, h)
+
+
+def test_every_chunk_runs_on_device(tmp_path, monkeypatch):
+    """Every chunk goes through the device kernel (device-born products
+    keep the screen and verify caches resident)."""
+    import galah_tpu.ops.device_sketch as ds
+
+    params = _params_medium()
+    paths = _genome_files(tmp_path, np.random.default_rng(33), 8, 4000)
     calls = []
     orig = ds.device_sketch_batch
 
-    def slow_batch(*a, **k):
-        if not calls:
-            time.sleep(0.5)
+    def counting(*a, **k):
         calls.append(len(a[0]))
         return orig(*a, **k)
 
-    monkeypatch.setattr(ds, "device_sketch_batch", slow_batch)
-    monkeypatch.setenv("GALAH_TPU_SHADOW_GRACE", "0.05")
-    got = ds.device_sketch_contig_files(
-        paths, params, max_batch_bytes=1 << 13, shadow_threads=2
-    )
-    ds._join_abandoned_at_exit()  # don't leak the background thread
+    monkeypatch.setattr(ds, "device_sketch_batch", counting)
+    got = ds.device_sketch_files(paths, params, max_batch_bytes=1 << 13)
+    assert sum(calls) == len(paths) and len(calls) > 1, calls
+    assert all(g is not None for g in got)
+
+
+def test_contig_files_chunked_matches_host(tmp_path):
+    import galah_tpu.ops.device_sketch as ds
+    from galah_tpu.sketch.fracminhash import sketch_contigs_native
+
+    params = _params_medium()
+    paths = _contig_files(tmp_path, np.random.default_rng(41))
+    got = ds.device_sketch_contig_files(paths, params, max_batch_bytes=1 << 13)
     for p, sks in zip(paths, got):
         hosts = sketch_contigs_native(p, params)
         assert [s.name for s in sks] == [h.name for h in hosts]
         for d, h in zip(sks, hosts):
             _assert_sketch_equal(d, h)
+
+
+@pytest.mark.parametrize("mode", ["genomes", "contigs"])
+def test_device_sketch_error_propagates(tmp_path, monkeypatch, mode):
+    """A failing device batch raises from the caller's thread; nothing
+    finishes the corpus on the host behind its back."""
+    import galah_tpu.ops.device_sketch as ds
+
+    params = _params_medium()
+    rng = np.random.default_rng(43)
+    calls = []
+
+    def failing(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("device batch failed")
+        return ds_orig(*a, **k)
+
+    ds_orig = ds.device_sketch_batch
+    monkeypatch.setattr(ds, "device_sketch_batch", failing)
+    with pytest.raises(RuntimeError, match="device batch failed"):
+        if mode == "genomes":
+            ds.device_sketch_files(
+                _genome_files(tmp_path, rng, 6, 4000), params,
+                max_batch_bytes=1 << 13,
+            )
+        else:
+            ds.device_sketch_contig_files(
+                _contig_files(tmp_path, rng), params, max_batch_bytes=1 << 12,
+            )
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize("params_fn", ["medium", "small"])
@@ -660,7 +625,7 @@ def test_lazy_pin_budget_materializes_oldest(monkeypatch):
 
     monkeypatch.setenv("GALAH_TPU_SKETCH_KERNEL", "scatter")
     monkeypatch.setenv("GALAH_TPU_SKETCH_HOST_COPIES", "lazy")
-    monkeypatch.setattr(D, "_LAZY_PIN_BUDGET", 1)  # every chunk over
+    monkeypatch.setattr(D, "_lazy_pin_budget", lambda: 1)  # every chunk over
     rng = np.random.default_rng(17)
     params = _params_medium()
     lists = [[_random_seq(rng, 900)] for _ in range(4)]
@@ -673,3 +638,31 @@ def test_lazy_pin_budget_materializes_oldest(monkeypatch):
     ae = device_sketch_batch(names[:2], lists[:2], params)
     for lz, eg in zip(a, ae):
         _assert_sketch_equal(lz, eg)
+
+
+def test_lazy_chunks_release_device_buffers_with_their_sketches(monkeypatch):
+    """A pending lazy chunk is held only by its sketches: once they are
+    gone, its device products are freed, so a finished run leaves
+    nothing pinned on the device."""
+    import gc
+
+    import jax
+
+    from galah_tpu.ops import device_sketch as D
+
+    monkeypatch.setenv("GALAH_TPU_SKETCH_KERNEL", "scatter")
+    monkeypatch.setenv("GALAH_TPU_SKETCH_HOST_COPIES", "lazy")
+    rng = np.random.default_rng(19)
+    params = _params_medium()
+    lists = [[_random_seq(rng, 900)] for _ in range(3)]
+    gc.collect()
+    before = {id(a) for a in jax.live_arrays()}
+    sketches = device_sketch_batch(
+        [f"g{i}" for i in range(3)], lists, params
+    )
+    assert len(D._LAZY_PENDING) == 1
+    assert sketches[0].frag_buckets._arr is None  # still pinned
+    del sketches
+    gc.collect()
+    assert len(D._LAZY_PENDING) == 0
+    assert {id(a) for a in jax.live_arrays()} <= before

@@ -2,8 +2,8 @@
 strategy, byte-identical clusters.
 
 The reference runs one code path per backend choice; this engine has
-several device strategies for the same math (indicator / packed-matmul /
-Pallas-popcount screens, sharded and row-sharded mesh sweeps, grouped /
+several device strategies for the same math (indicator / packed-matmul
+screens, sharded and row-sharded mesh sweeps, grouped /
 pair-table verify kernels, low-memory streaming). Any indexing, caching,
 sharding, or numerics bug that is specific to one strategy shows up here
 as a cluster diff against the default path — the same invariance the
@@ -28,7 +28,6 @@ def _clusters(paths, **params):
 CONFIGS = [
     ("screen-indicator", {"GALAH_TPU_SCREEN": "indicator"}, {}),
     ("screen-packed-1dev", {"GALAH_TPU_SCREEN": "packed"}, {}),
-    ("screen-popcount", {"GALAH_TPU_SCREEN": "popcount"}, {}),
     ("rowsharded-mesh", {"GALAH_TPU_ROWSHARD": "1"}, {}),
     ("verify-pairtable", {"GALAH_TPU_VERIFY": "pairtable"}, {}),
     ("verify-grouped", {"GALAH_TPU_VERIFY": "grouped"}, {}),
@@ -101,7 +100,6 @@ def test_screen_strategies_agree_at_scale(tmp_path, monkeypatch):
         ("rowsharded", {"GALAH_TPU_ROWSHARD": "1"}),
         ("packed-1dev", {"GALAH_TPU_SCREEN": "packed"}),
         ("indicator", {"GALAH_TPU_SCREEN": "indicator"}),
-        ("popcount", {"GALAH_TPU_SCREEN": "popcount"}),
     ]:
         for var, val in env.items():
             monkeypatch.setenv(var, val)

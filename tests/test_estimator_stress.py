@@ -24,7 +24,7 @@ contaminated, rearranged MAGs with indels):
 - contamination: foreign contigs dilute AF, never ANI; a contaminant
   source sharing only ~10% of bases is rejected by the default AF=15%.
 
-Full numeric characterization: benchmarks/RESULTS.md (round 3).
+The assertions below pin the characterization.
 """
 
 import numpy as np
@@ -120,8 +120,7 @@ def test_two_incomplete_mags_af_rejection(tmp_path):
     pairs — the regime it exists for (src/fastani.rs:55-65).
 
     Two measured behaviors of the fragment-count AF are pinned here
-    (both shared with fastANI's mapped-fragment semantics, and
-    characterized in RESULTS.md round 3):
+    (both shared with fastANI's mapped-fragment semantics):
     - fragments that only PARTIALLY overlap the other side's retained
       contigs still count as aligned while their identity stays >= the
       0.8 floor, so AF reads ~0.82 where base-level overlap is ~0.55

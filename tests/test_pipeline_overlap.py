@@ -1,9 +1,8 @@
 """Sketch->screen pipeline overlap (IncrementalPackedScreen).
 
 The reference's sketch->search handoff happens inside one process
-(/root/reference/src/skani.rs:270-304); here the phases ride a
-serialized RPC relay, so overlap is what converts the e2e wall from
-sum(phase bands) toward max(phase). These tests pin (a) bit-identical
+(reference src/skani.rs:270-304); overlap moves the e2e wall from
+sum(phases) toward max(phase). These tests pin (a) bit-identical
 results regardless of feed order/batching vs the sequential sweep,
 and (b) that screening genuinely starts before the last rows arrive.
 """
@@ -164,7 +163,6 @@ def test_engine_pipelined_distances_matches_sequential(monkeypatch, tmp_path):
         monkeypatch.setenv("GALAH_TPU_PIPELINE", pipeline)
         monkeypatch.setenv("GALAH_TPU_DEVICE_SKETCH", "1")
         monkeypatch.setenv("GALAH_TPU_SCREEN", "packed")
-        monkeypatch.setenv("GALAH_TPU_SKETCH_SHADOW", "0")
         monkeypatch.setenv("GALAH_TPU_SCREEN_BLOCK", "8")
         monkeypatch.setenv("GALAH_TPU_SCREEN_TILE_GROUP", "2")
         # Tiny flush threshold: forces several mid-sweep verify
@@ -175,7 +173,7 @@ def test_engine_pipelined_distances_matches_sequential(monkeypatch, tmp_path):
         pre = NativePreclusterer(90.0, 0.15, ctx)
         cache = pre.distances(paths)
         for v in ("GALAH_TPU_PIPELINE", "GALAH_TPU_DEVICE_SKETCH",
-                  "GALAH_TPU_SCREEN", "GALAH_TPU_SKETCH_SHADOW",
+                  "GALAH_TPU_SCREEN",
                   "GALAH_TPU_SCREEN_BLOCK", "GALAH_TPU_SCREEN_TILE_GROUP",
                   "GALAH_TPU_VERIFY_FLUSH"):
             monkeypatch.delenv(v)
@@ -220,13 +218,12 @@ def test_engine_pipelined_contig_mode_matches_sequential(monkeypatch, tmp_path):
         monkeypatch.setenv("GALAH_TPU_PIPELINE", pipeline)
         monkeypatch.setenv("GALAH_TPU_DEVICE_SKETCH", "1")
         monkeypatch.setenv("GALAH_TPU_SCREEN", "packed")
-        monkeypatch.setenv("GALAH_TPU_SKETCH_SHADOW", "0")
         monkeypatch.setenv("GALAH_TPU_SCREEN_BLOCK", "8")
         ctx = NativeContext(max_genome_length=30_000)
         pre = NativePreclusterer(90.0, 0.15, ctx)
         cache = pre.distances_contigs(paths, contig_names)
         for v in ("GALAH_TPU_PIPELINE", "GALAH_TPU_DEVICE_SKETCH",
-                  "GALAH_TPU_SCREEN", "GALAH_TPU_SKETCH_SHADOW",
+                  "GALAH_TPU_SCREEN",
                   "GALAH_TPU_SCREEN_BLOCK"):
             monkeypatch.delenv(v)
         return dict(cache.items())
@@ -257,12 +254,11 @@ def test_pipelined_duplicate_paths_emit_every_index_pair(
         monkeypatch.setenv("GALAH_TPU_PIPELINE", pipeline)
         monkeypatch.setenv("GALAH_TPU_DEVICE_SKETCH", "1")
         monkeypatch.setenv("GALAH_TPU_SCREEN", "packed")
-        monkeypatch.setenv("GALAH_TPU_SKETCH_SHADOW", "0")
         ctx = NativeContext(max_genome_length=24_000)
         pre = NativePreclusterer(90.0, 0.15, ctx)
         cache = pre.distances(dup)
         for v in ("GALAH_TPU_PIPELINE", "GALAH_TPU_DEVICE_SKETCH",
-                  "GALAH_TPU_SCREEN", "GALAH_TPU_SKETCH_SHADOW"):
+                  "GALAH_TPU_SCREEN"):
             monkeypatch.delenv(v)
         return dict(cache.items())
 

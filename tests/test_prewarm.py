@@ -88,7 +88,6 @@ def test_prewarm_main_runs(monkeypatch, capsys):
 
     import galah_tpu.tools.prewarm as pw
 
-    monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
     monkeypatch.setattr(
         sys, "argv", ["prewarm", "--n", "64", "--bits", "4096"]
     )

@@ -125,7 +125,7 @@ def test_zero_cutoff_screen_emits_strict_upper_triangle():
     the screen must still emit each pair once as (i, j) with i < j and
     never self-pairs — the diagonal used to be masked with 0.0, which a
     >= 0.0 cutoff let straight through."""
-    from galah_tpu.ops.popcount_screen import pack_indicator
+    from galah_tpu.ops.prefilter import pack_indicator
     from galah_tpu.ops.prefilter import (
         screen_triangle,
         screen_triangle_packed,
@@ -162,7 +162,7 @@ def test_widen_after_sketch_refused(tmp_path):
 
 
 def test_screen_dtype_paths_identical(monkeypatch):
-    """The three screen matmul dtypes (f32, bf16-MXU, int8-MXU) must
+    """The three screen matmul dtypes (f32, bf16, int8) must
     produce bit-identical screen output: 0/1 indicator intersection
     counts are exact integers under f32 accumulation (< 2^24) and int32
     accumulation alike, so the dtype is purely a throughput knob
@@ -285,7 +285,7 @@ def test_screen_row_overflow_tiles_exact(monkeypatch):
     """A corpus where EVERY tile row has hits (cutoff 0) exercises the
     row-overflow re-extraction in all drain paths: results must equal
     the dense oracle exactly."""
-    from galah_tpu.ops.popcount_screen import pack_indicator
+    from galah_tpu.ops.prefilter import pack_indicator
     from galah_tpu.ops.prefilter import ROW_SEL, screen_triangle_packed
     from galah_tpu.parallel.distance import sharded_screen_triangle_packed
     from galah_tpu.parallel.mesh import make_mesh

@@ -1,76 +1,66 @@
-"""Exactness of the Pallas fused unpack+matmul (ops/packed_matmul.py)
-against a numpy popcount-intersection oracle. Runs in interpret mode
-on the CPU backend; the TPU compiled path is measured on-chip by
-benchmarks/screen_tile_probe.py and exactness there follows from the
-kernel being a permutation-invariant integer dot."""
+"""Screen intersection counts (ops/prefilter.py:_screen_counts_packed,
+unpack + dot_general) against a numpy popcount-intersection oracle, in
+every screen dtype, and the resident sweep's grouped tile dispatch."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from galah_tpu.ops.packed_matmul import packed_intersect_matmul
+from galah_tpu.ops.prefilter import _screen_counts_packed, pack_indicator
 
 
 def _pack(bits: np.ndarray) -> np.ndarray:
     return np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
 
 
-@pytest.mark.parametrize(
-    "m,n,bits,tm,tn,kw",
-    [
-        (128, 128, 4096, 128, 128, 64),
-        (256, 128, 8192, 128, 128, 128),
-        (128, 256, 4096, 128, 128, 32),
-    ],
-)
-def test_packed_intersect_matmul_exact(m, n, bits, tm, tn, kw):
-    rng = np.random.default_rng(m + n + bits)
-    a = rng.random((m, bits)) < 0.15
-    b = rng.random((n, bits)) < 0.15
-    want = a.astype(np.int64) @ b.astype(np.int64).T
-    got = np.asarray(
-        packed_intersect_matmul(
-            jnp.asarray(_pack(a)), jnp.asarray(_pack(b)),
-            tm=tm, tn=tn, kw=kw, interpret=True,
-        )
-    )
-    assert got.dtype == np.int32
-    assert (got == want).all()
-
-
-def test_packed_intersect_matmul_dense_and_empty_rows():
+def _dense_and_empty():
     rng = np.random.default_rng(7)
     a = rng.random((128, 4096)) < 0.9
     a[3] = False  # empty row
     a[4] = True   # full row
     b = rng.random((128, 4096)) < 0.9
+    return a, b
+
+
+def _sparse(m, n, bits):
+    rng = np.random.default_rng(m + n + bits)
+    return rng.random((m, bits)) < 0.15, rng.random((n, bits)) < 0.15
+
+
+CASES = {
+    "128x128x4096": lambda: _sparse(128, 128, 4096),
+    "256x128x8192": lambda: _sparse(256, 128, 8192),
+    "128x256x4096": lambda: _sparse(128, 256, 4096),
+    "dense_and_empty_rows": _dense_and_empty,
+}
+
+
+@pytest.mark.parametrize("dtname", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_screen_counts_packed_exact(case, dtname):
+    a, b = CASES[case]()
     want = a.astype(np.int64) @ b.astype(np.int64).T
-    got = np.asarray(
-        packed_intersect_matmul(
-            jnp.asarray(_pack(a)), jnp.asarray(_pack(b)),
-            tm=128, tn=128, kw=64, interpret=True,
-        )
-    )
+    fn = jax.jit(lambda x, y: _screen_counts_packed(x, y, dtname))
+    got = np.asarray(fn(jnp.asarray(_pack(a)), jnp.asarray(_pack(b))))
+    assert got.dtype == np.float32
     assert (got == want).all()
 
 
-def test_packed_intersect_matmul_shape_validation():
-    a = jnp.zeros((100, 64), jnp.uint32)
-    with pytest.raises(ValueError, match="not tiled"):
-        packed_intersect_matmul(a, a, tm=128, tn=128, kw=64, interpret=True)
-    b = jnp.zeros((128, 32), jnp.uint32)
-    a = jnp.zeros((128, 64), jnp.uint32)
-    with pytest.raises(ValueError, match="mismatch"):
-        packed_intersect_matmul(a, b, tm=128, tn=128, kw=32, interpret=True)
+def test_pack_indicator():
+    bits = 1 << 10
+    buckets = np.array([0, 1, 31, 32, 1023], dtype=np.int32)
+    words = pack_indicator(buckets, bits)
+    assert words[0] == (1 | 2 | (1 << 31))
+    assert words[1] == 1
+    assert words[31] == (1 << 31)
+    assert int(np.unpackbits(words.view(np.uint8)).sum()) == 5
 
 
 def test_grouped_tile_dispatch_matches_single(monkeypatch):
     """GALAH_TPU_SCREEN_TILE_GROUP>1 batches resident-sweep tiles into
     lax.map dispatches; results must be identical to per-tile
     dispatches (same kernel body)."""
-    import numpy as np
-
-    from galah_tpu.ops.popcount_screen import pack_indicator
     from galah_tpu.ops.prefilter import screen_triangle_packed
 
     rng = np.random.default_rng(17)
@@ -108,8 +98,6 @@ def test_grouped_tile_dispatch_matches_single(monkeypatch):
 def test_grouped_rectangle_dispatch_matches_single(monkeypatch):
     """The rectangle (reference-mode) resident sweep groups tiles the
     same way; results must be identical to per-tile dispatches."""
-    import numpy as np
-
     from galah_tpu.ops.prefilter import screen_rectangle_packed
 
     rng = np.random.default_rng(23)
@@ -143,8 +131,6 @@ def test_grouped_dispatch_group_cap_overflow_fallback(monkeypatch):
     """When a group's total survivors exceed the shared cap region the
     drain re-dispatches tiles singly; a fully-dense corpus (every pair
     passes) exercises that path and must match per-tile results."""
-    import numpy as np
-
     from galah_tpu.ops.prefilter import screen_triangle_packed
 
     rng = np.random.default_rng(31)
@@ -187,8 +173,6 @@ def test_padded_remainder_group_does_not_spuriously_overflow(monkeypatch):
     AND that no fallback happened — so the nreal-exclusion fix
     (prefilter.py _decode_group_result / kernel `real` mask) is
     load-bearing, not vacuously green."""
-    import numpy as np
-
     from galah_tpu.ops import prefilter as pf
 
     rng = np.random.default_rng(41)

@@ -184,7 +184,6 @@ def test_checkpoint_with_overlap_pipeline(corpus, tmp_path, monkeypatch):
         monkeypatch.setenv("GALAH_TPU_PIPELINE", "1")
         monkeypatch.setenv("GALAH_TPU_DEVICE_SKETCH", "1")
         monkeypatch.setenv("GALAH_TPU_SCREEN", "packed")
-        monkeypatch.setenv("GALAH_TPU_SKETCH_SHADOW", "0")
         monkeypatch.setenv("GALAH_TPU_SCREEN_BLOCK", "8")
         rc = cli_main([
             "cluster", "-f", *corpus, "--ani", "95",
@@ -192,7 +191,7 @@ def test_checkpoint_with_overlap_pipeline(corpus, tmp_path, monkeypatch):
             "--output-cluster-definition", out, "-q",
         ])
         for v in ("GALAH_TPU_PIPELINE", "GALAH_TPU_DEVICE_SKETCH",
-                  "GALAH_TPU_SCREEN", "GALAH_TPU_SKETCH_SHADOW",
+                  "GALAH_TPU_SCREEN",
                   "GALAH_TPU_SCREEN_BLOCK"):
             monkeypatch.delenv(v)
         return rc
